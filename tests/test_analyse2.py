@@ -35,7 +35,7 @@ def test_stego_costs_v2_match_v1():
         rho1, alt1, fl1 = alt_mv_costs(cur, planes, jnp.asarray(mv), mvp,
                                        cmv, 26, mbh, mbw, decimate)
 
-        win = QT.gather_windows(planes, mv_fp, mbh, mbw, interpret=True)
+        win = QT.gather_windows_jnp(planes, mv_fp, mbh, mbw)
         blocks = QT.block_table(win)
         wht = QT.wht16(blocks)
         r_idx = jnp.asarray(((r[..., 1] + 6) * 13
@@ -53,7 +53,7 @@ def test_subpel_from_table_mv_in_box():
     mbh, mbw = 3, 4
     cur, planes = _frame_pair(seed=9)
     mv_fp = jnp.zeros((mbh, mbw, 2), jnp.int32)
-    win = QT.gather_windows(planes, mv_fp, mbh, mbw, interpret=True)
+    win = QT.gather_windows_jnp(planes, mv_fp, mbh, mbw)
     wht = QT.wht16(QT.block_table(win))
     prev = jnp.zeros((mbh, mbw, 2), jnp.int32)
     mv, r_idx = A2.subpel_from_table(cur, wht, mv_fp, prev, mbh, mbw, 4, 2)

@@ -326,7 +326,7 @@ def test_aq_with_p4x4(cabac):
 
 
 def test_aq_with_device_deblock():
-    """AQ + the device wavefront deblocker (the TPU serving config):
+    """AQ + the device wavefront deblocker (the serving config):
     per-MB effective-QP maps through deblock_frame_device; decoder
     (host C++ deblock from the parsed per-MB QPs) must agree
     bit-exactly."""

@@ -211,3 +211,90 @@ def test_device_deblock_trans8_and_offsets_matches_native():
             np.testing.assert_array_equal(
                 np.asarray(got), want,
                 err_msg=f"{name} qp{qp} offA{off_a} offB{off_b}")
+
+
+def _fuzz_frame(rng, mbh, mbw, amp=24):
+    """Structured low-amplitude content (flat MB bases + noise) with
+    real-looking decision fields: intra/skip mixes, nnz, MVs that are
+    piecewise-constant over 8x8 units."""
+    H, W = 16 * mbh, 16 * mbw
+    base = rng.integers(60, 180, (mbh, mbw))
+    y = np.repeat(np.repeat(base, 16, 0), 16, 1)
+    y = np.clip(y + rng.integers(-amp, amp + 1, (H, W)), 0, 255)
+    u = np.clip(128 + rng.integers(-amp, amp + 1, (H // 2, W // 2)), 0, 255)
+    v = np.clip(128 + rng.integers(-amp, amp + 1, (H // 2, W // 2)), 0, 255)
+    intra = (rng.random((mbh, mbw)) < 0.15).astype(np.uint8)
+    skip = ((rng.random((mbh, mbw)) < 0.2) & (intra == 0)).astype(np.uint8)
+    nnz4 = (rng.random((4 * mbh, 4 * mbw)) < 0.5).astype(np.int32)
+    mv4 = rng.integers(-20, 21, (4 * mbh, 4 * mbw, 2)).astype(np.int32)
+    mv4 = np.repeat(np.repeat(mv4[::2, ::2], 2, 0), 2, 1)
+    return (y.astype(np.uint8), u.astype(np.uint8), v.astype(np.uint8),
+            intra, skip, nnz4, mv4)
+
+
+@pytest.mark.skipif(native.load() is None, reason="native lib missing")
+@pytest.mark.parametrize("case", [
+    dict(qp=32, mbh=6, mbw=8), dict(qp=40, mbh=5, mbw=9),
+    dict(qp=20, mbh=4, mbw=12),
+    dict(qp=None, mbh=5, mbw=10, seed=7),           # AQ maps + multi-ref
+    dict(qp=30, mbh=5, mbw=9, seed=58, trans8=True, off=(6, -6)),
+], ids=["qp32", "qp40", "qp20", "aq_mref", "trans8_offsets"])
+def test_device_deblock_fuzz_matches_native(case):
+    """Fuzz matrix over every edge type — strong (intra), normal bS
+    1/2, MB-boundary qPav, per-MB AQ maps, multi-ref bS, the
+    qp_thresh internal-edge kill, trans8 + FilterOffsetA/B — device
+    twin against the C++ filter."""
+    from video_steganography_pcamv_tpu.ops.transform import (
+        CHROMA_QP_TABLE)
+    mbh, mbw = case["mbh"], case["mbw"]
+    rng = np.random.default_rng(case.get("seed", case["qp"]))
+    y, u, v, intra, skip, nnz4, mv4 = _fuzz_frame(rng, mbh, mbw)
+    nat, dev = {}, {}
+    off_a, off_b = case.get("off", (0, 0))
+    cqo = 0
+    if case["qp"] is None:
+        cqo = 2
+        qp_map = rng.integers(18, 44, (mbh, mbw)).astype(np.int32)
+        qpc_map = CHROMA_QP_TABLE[np.clip(qp_map + cqo, 0, 51)] \
+            .astype(np.int32)
+        ref4 = rng.integers(0, 3, (4 * mbh, 4 * mbw)).astype(np.int32)
+        ref4 = np.repeat(np.repeat(ref4[::2, ::2], 2, 0), 2, 1)
+        qp, qpc = int(qp_map[0, 0]), int(qpc_map[0, 0])
+        nat.update(qp_map=qp_map, qpc_map=qpc_map, ref4=ref4,
+                   chroma_qp_offset=cqo)
+        dev.update(ref4=jnp.asarray(ref4))
+        qp_d, qpc_d = jnp.asarray(qp_map), jnp.asarray(qpc_map)
+    else:
+        qp, qpc = case["qp"], chroma_qp(case["qp"])
+        qp_d, qpc_d = qp, qpc
+    if case.get("trans8"):
+        trans8 = (rng.random((mbh, mbw)) < 0.5).astype(np.uint8)
+        nat.update(trans8=trans8, alpha_off=off_a, beta_off=off_b)
+        dev.update(trans8=jnp.asarray(trans8.astype(np.int32)),
+                   off_a=off_a, off_b=off_b)
+
+    ry, ru, rv = y.copy(), u.copy(), v.copy()
+    native.deblock_frame(ry, ru, rv, intra, nnz4, mv4, skip, qp, qpc,
+                         **nat)
+    got = deblock_frame_device(
+        jnp.asarray(y, jnp.int32), jnp.asarray(u, jnp.int32),
+        jnp.asarray(v, jnp.int32), jnp.asarray(intra),
+        jnp.asarray(skip), jnp.asarray(nnz4), jnp.asarray(mv4),
+        qp_d, qpc_d, mbh, mbw,
+        qp_thresh=15 - min(off_a, off_b) - max(0, cqo), **dev)
+    for g, want, name in zip(got, (ry, ru, rv), "YUV"):
+        np.testing.assert_array_equal(np.asarray(g), want,
+                                      err_msg=f"plane {name}")
+
+
+@pytest.fixture
+def gpu():
+    import jax
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a CUDA GPU; run python3 chip_smoke.py there")
+
+
+@pytest.mark.gpu
+def test_device_deblock_on_gpu_at_1080p(gpu):
+    import chip_smoke
+    chip_smoke.check_deblock()

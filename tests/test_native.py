@@ -161,3 +161,17 @@ def test_pslice_bitstream_matches_python():
         luma_blocks=luma_blocks,
         chroma_dc=arr["chroma_dc"], chroma_ac=arr["chroma_ac"])
     assert got == ref
+
+
+def test_native_builds_into_ignored_dir():
+    """The library is built from source at first use into native/build
+    (listed in .gitignore), never shipped as a binary."""
+    import os
+    from video_steganography_pcamv_tpu import native as N
+    assert N.load() is not None, N.build_error
+    assert N.build_error is None
+    assert os.path.dirname(N._LIB) == os.path.join(N._DIR, "build")
+    repo = os.path.dirname(os.path.dirname(N._DIR))
+    ignored = open(os.path.join(repo, ".gitignore")).read().split()
+    assert "video_steganography_pcamv_tpu/native/build/" in ignored
+    assert not any(f.endswith(".so") for f in os.listdir(N._DIR))

@@ -25,7 +25,7 @@ def test_partition_pipeline_matches_16x16_when_restricted():
     lam = 4
 
     mv16, r16, blocks16, wht16t = A2.analyse_p_frame(
-        y, ref["luma"], prev, 8, mbh, mbw, lam, 2, False)
+        y, ref["luma"], prev, 8, mbh, mbw, lam, 2)
     part, mv8, r8, blocks8, wht8, _cost = PT.analyse_p_frame_parts(
         y, ref["luma"], prev, 8, mbh, mbw, lam, 2, allow_parts=False)
 

@@ -1,8 +1,6 @@
-"""Pallas analyse-tail kernels vs the XLA oracles (interpret mode).
-
-Checks bit-exactness of ops/probe_pallas.py against the serving-path
-XLA chain: block_table8 + wht8_flat (tables), subpel_parts (refine)
-and probe_maps_xla (RCA probe SATD maps)."""
+"""The split RCA probe stage: probe_maps_xla (the unit-independent
+SATD maps the deep pipeline computes before the MVPs are known) +
+probe_combine must equal the one-shot stego_costs_parts."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -11,8 +9,6 @@ import pytest
 from video_steganography_pcamv_tpu.ops import mc
 from video_steganography_pcamv_tpu.encoder import partition as PT
 from video_steganography_pcamv_tpu.encoder import me as ME
-from video_steganography_pcamv_tpu.ops.probe_pallas import (
-    analyse_tail_pallas)
 
 
 def _setup(seed, mbh, mbw, rng_px=16):
@@ -41,44 +37,13 @@ def _setup(seed, mbh, mbw, rng_px=16):
     return cur, ref, part, mvfp8, prev_mv
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("qp", [26, 38])
-def test_analyse_tail_matches_xla(seed, qp):
-    mbh, mbw = 2, 3
-    cur, ref, part, mvfp8, prev_mv = _setup(seed, mbh, mbw)
-    lam = ME.lambda_tab(qp)
-    cur_j = jnp.asarray(cur)
-    planes = ref["luma"].astype(jnp.uint8)
-    windows = PT.gather_windows8_jnp(planes, jnp.asarray(mvfp8),
-                                     mbh, mbw)
-
-    # XLA oracle chain
-    blocks8 = PT.block_table8(windows)
-    wht8 = PT.wht8_flat(blocks8).astype(jnp.int16)
-    mv8_x, ridx_x, _ = PT.subpel_parts(
-        cur_j, wht8, jnp.asarray(part), jnp.asarray(mvfp8),
-        jnp.asarray(prev_mv), mbh, mbw, lam, 2)
-    SK_x, SP_x, sc8_x = PT.probe_maps_xla(
-        cur_j, blocks8, wht8, ridx_x, qp, mbh, mbw, True)
-
-    mv8_p, ridx_p, SK_p, SP_p, sc8_p = analyse_tail_pallas(
-        cur_j, windows, jnp.asarray(part), jnp.asarray(mvfp8),
-        jnp.asarray(prev_mv), lam, qp, mbh, mbw, decimate=True,
-        interpret=True)
-
-    assert np.array_equal(np.asarray(ridx_p), np.asarray(ridx_x))
-    assert np.array_equal(np.asarray(mv8_p), np.asarray(mv8_x))
-    assert np.array_equal(np.asarray(sc8_p), np.asarray(sc8_x))
-    assert np.array_equal(np.asarray(SK_p), np.asarray(SK_x))
-    assert np.array_equal(np.asarray(SP_p), np.asarray(SP_x))
-
-
-def test_probe_combine_from_kernel_maps():
-    """End-to-end: kernel maps + probe_combine == stego_costs_parts."""
+@pytest.mark.parametrize("seed,qp,decimate", [
+    (3, 30, True), (0, 26, True), (1, 38, True), (0, 26, False)])
+def test_probe_combine_from_kernel_maps(seed, qp, decimate):
+    """probe_maps_xla + probe_combine == stego_costs_parts."""
     from video_steganography_pcamv_tpu.stego.cost import cost_mv_table
     mbh, mbw = 2, 3
-    qp = 30
-    cur, ref, part, mvfp8, prev_mv = _setup(3, mbh, mbw)
+    cur, ref, part, mvfp8, prev_mv = _setup(seed, mbh, mbw)
     lam = ME.lambda_tab(qp)
     cur_j = jnp.asarray(cur)
     planes = ref["luma"].astype(jnp.uint8)
@@ -96,15 +61,13 @@ def test_probe_combine_from_kernel_maps():
 
     rho_x, alt_x, val_x = PT.stego_costs_parts(
         cur_j, blocks8, wht8, ridx, jnp.asarray(part), mv8, mvp_u,
-        cmv, qp, mbh, mbw, True)
+        cmv, qp, mbh, mbw, decimate)
 
-    _, _, SK, SP, sc8 = analyse_tail_pallas(
-        cur_j, windows, jnp.asarray(part), jnp.asarray(mvfp8),
-        jnp.asarray(prev_mv), lam, qp, mbh, mbw, decimate=True,
-        interpret=True)
+    SK, SP, sc8 = PT.probe_maps_xla(cur_j, blocks8, wht8, ridx, qp,
+                                    mbh, mbw, decimate)
     rho_p, alt_p, val_p = PT.probe_combine(
         SK, SP, sc8, jnp.asarray(part), mv8, mvp_u, cmv, mbh, mbw,
-        True)
+        decimate)
     assert np.array_equal(np.asarray(rho_p), np.asarray(rho_x))
     assert np.array_equal(np.asarray(alt_p), np.asarray(alt_x))
     assert np.array_equal(np.asarray(val_p), np.asarray(val_x))

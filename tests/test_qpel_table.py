@@ -22,7 +22,7 @@ def _setup(mbh=2, mbw=3, seed=0):
 def test_windows_and_block_table_match_mc_luma():
     planes, mv_fp, mbh, mbw = _setup()
     n = mbh * mbw
-    win = QT.gather_windows(planes, mv_fp, mbh, mbw, interpret=True)
+    win = QT.gather_windows_jnp(planes, mv_fp, mbh, mbw)
     table = QT.block_table(win)            # [169, N, 16, 16]
 
     ys = (jnp.arange(n) // mbw) * 16

@@ -1,8 +1,8 @@
 """Config-4 serving measurement (VERDICT r4 item 8): 1080p
 CABAC + B-frames + 2-ref + stego, the BASELINE ladder rung 4 shape —
-what does the non-IPP pipeline actually serve at on one chip?
+what does the non-IPP pipeline actually serve at on one card?
 
-Prints one JSON line. Run on TPU.
+Prints the card, then one JSON line. Needs a GPU.
 """
 
 import json
@@ -13,8 +13,12 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/pcamv_jax"))
+from video_steganography_pcamv_tpu.utils.jaxcache import (  # noqa: E402
+    setup_compile_cache)
+from video_steganography_pcamv_tpu.utils.device import (  # noqa: E402
+    card_line, require_gpu)
+
+setup_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 import numpy as np
 
@@ -25,6 +29,8 @@ from video_steganography_pcamv_tpu.utils.yuv import synthetic_sequence
 
 
 def main(width=1920, height=1088, n_measure=8, qp=26, em_rate=64.0):
+    require_gpu()
+    print(card_line(), flush=True)
     p = Params(width=width, height=height, qp=qp, me_range=16,
                cabac=True, bframes=2, b_adapt=0, ref_frames=2,
                psnr=False, deblock_device=True,
@@ -47,9 +53,10 @@ def main(width=1920, height=1088, n_measure=8, qp=26, em_rate=64.0):
           and all(np.array_equal(g, m) for g, m in zip(got, sent)))
     print(json.dumps({
         "metric": "encode_embed_fps_1080p_c4_cabac_b2_ref2",
-        "value": round(fps, 4),
+        "value": fps,
         "unit": "fps",
         "payload_recovered": bool(ok),
+        "device_kind": jax.devices()[0].device_kind,
     }))
 
 

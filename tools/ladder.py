@@ -1,10 +1,10 @@
 """BASELINE.json config ladder: run each reference configuration (or
 its closest supported form) and record fps / bitrate / PSNR / payload
-recovery into docs/RESULTS.md.
+recovery (one JSON line per row; --out FILE also merges them there).
 
 Usage:
     python tools/ladder.py --cpu      # QCIF/CIF configs on CPU
-    python tools/ladder.py --tpu      # 720p/1080p configs on the chip
+    python tools/ladder.py --gpu      # 720p/1080p configs on a GPU
 """
 
 from __future__ import annotations
@@ -45,8 +45,10 @@ def run_config(name, width, height, n_frames, qp, em_rate, key=7,
         sent = enc._stego.sent_messages
         rec_ok = (len(got) == len(sent)
                   and all(np.array_equal(g, m) for g, m in zip(got, sent)))
+    import jax
     return dict(config=name, res=f"{width}x{height}", qp=qp,
                 frames=n_frames, cabac=cabac,
+                device=jax.devices()[0].device_kind,
                 fps=round((n_frames - 1) / dt, 3),
                 kbps=round(s["kbps"], 1),
                 psnr_y=round(s["psnr_y"], 2),
@@ -60,16 +62,22 @@ def run_config(name, width, height, n_frames, qp, em_rate, key=7,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--tpu", action="store_true")
-    ap.add_argument("--out", default="docs/RESULTS.json")
+    ap.add_argument("--gpu", action="store_true")
+    ap.add_argument("--out", default="")
     args = ap.parse_args()
 
     if args.cpu:
         import tools.cpu_env  # noqa: F401  (force CPU backend)
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/pcamv_jax"))
+    from video_steganography_pcamv_tpu.utils.jaxcache import (
+        setup_compile_cache)
+    setup_compile_cache()
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    if args.gpu:
+        from video_steganography_pcamv_tpu.utils.device import (
+            card_line, require_gpu)
+        require_gpu()
+        print(card_line(), flush=True)
 
     rows = []
     if args.cpu:
@@ -82,7 +90,7 @@ def main():
                                    12, 26, float(pay)))
         # config 5 (reduced): 8-stream batched step on virtual devices
         # is exercised by __graft_entry__.dryrun_multichip / tests
-    if args.tpu:
+    if args.gpu:
         # config 3: 720p embed+extract roundtrip (8x8 transform + RD
         # are not implemented; documented divergence)
         rows.append(run_config("3:720p-roundtrip", 1280, 720, 6, 26,
@@ -93,6 +101,8 @@ def main():
                                    4, qp, 256.0, cabac=True))
     for r in rows:
         print(json.dumps(r))
+    if not args.out:
+        return
     prev = []
     if os.path.exists(args.out):
         prev = json.load(open(args.out))

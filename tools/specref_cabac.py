@@ -4,9 +4,8 @@ Kept as a permanent referee: when the repo encoder+decoder agree with
 each other but an external decoder disagrees, this file (written
 directly from ITU-T H.264 9.3, sharing NOTHING with the production
 code path except the normative constant tables) arbitrates bin by bin.
-Used to root-cause the round-3 coded_block_flag ctx bug; see
-docs/ROUND3.md. Pair with an instrumented CabacSliceParser to diff
-(ctx, bit) logs (the bindiff recipe in docs/ROUND3.md).
+Used to root-cause the round-3 coded_block_flag ctx bug. Pair with an
+instrumented CabacSliceParser to diff (ctx, bit) logs.
 
 Written directly from ITU-T H.264 (2003) sections 9.3.3.2 (arithmetic
 decode), 9.3.3.1 (ctx derivation), 9.3.2 (binarization), 7.3.5/7.4.5

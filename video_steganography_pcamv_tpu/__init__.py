@@ -1,4 +1,4 @@
-"""video_steganography_pcamv_tpu — TPU-native rebuild of the PCAMV/RCA
+"""video_steganography_pcamv_tpu — JAX rebuild of the PCAMV/RCA
 motion-vector video-steganography framework.
 
 The reference (`lijun9250lj/video-steganography-PCAMV`) is an x264-b66 fork
@@ -8,9 +8,9 @@ syndrome-trellis codes (STC), with a rate-distortion "cost assignment"
 local optimality (see /root/reference/encoder/analyse.c:2391-2550 and
 /root/reference/encoder/encoder.c:1276-1862).
 
-This package is a from-scratch TPU-first design:
+This package is a from-scratch device-first design:
 
-- Device compute path (JAX / XLA / Pallas): whole-frame batched pixel
+- Device compute path (JAX / XLA, one Pallas kernel): whole-frame batched pixel
   metrics, integer DCT/quant/recon in coefficient-plane layout, intra
   prediction, motion compensation, batched motion search, and the stego
   alternative-MV cost assignment.

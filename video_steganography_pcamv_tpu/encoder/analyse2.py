@@ -74,23 +74,18 @@ def subpel_from_table(cur_y, wht169, mv_fp, prev_mv, mbh: int, mbw: int,
 
 
 @functools.partial(jax.jit, static_argnames=("rng", "mbh", "mbw",
-                                             "subpel", "use_pallas"))
+                                             "subpel"))
 def analyse_p_frame(y, ref_luma, prev_mv, rng: int, mbh: int, mbw: int,
-                    lam, subpel: int, use_pallas: bool):
+                    lam, subpel: int):
     """Fused P-frame analysis: full-pel ME + window gather + qpel block
     table + subpel argmin, one device dispatch. Returns
     (mv [mbh,mbw,2], r_idx [N], blocks169, wht169) — the tables stay on
     device for the stego pass."""
     from . import me as ME
     from . import qpel_table as QT
-    if use_pallas:
-        from ..ops.pallas_kernels import fullpel_search_pallas
-        mv_fp, _ = fullpel_search_pallas.__wrapped__(
-            y, ref_luma[0], rng, mbh, mbw, lam)
-    else:
-        zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
-        mv_fp, _ = ME.fullpel_search.__wrapped__(
-            y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
+    zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
+    mv_fp, _ = ME.fullpel_search.__wrapped__(
+        y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
     windows = QT.gather_windows_jnp(
         ref_luma.astype(jnp.uint8), mv_fp, mbh, mbw).astype(jnp.int32)
     blocks = QT.block_table(windows)

@@ -5,7 +5,7 @@ direct + L0/L1/BI 16x16 analysis, bidir SATD refine me.c:914-997),
 spatial direct derivation (common/macroblock.c x264_mb_predict_mv_direct
 spatial path), and the B mb_type syntax (spec 7.4.5 / 9.3.2.5).
 
-TPU redesign: L0 and L1 motion searches are two runs of the exhaustive
+Batched redesign: L0 and L1 motion searches are two runs of the exhaustive
 table pipeline; the BI cost is evaluated exactly at (bestL0, bestL1)
 like x264's bidir refine; spatial-direct MV derivation is the host
 raster scan (serial by the spec's neighbour dependences), with the
@@ -117,10 +117,9 @@ def _subpel_cost(cur_y, wht169, mv_fp, prev_mv, mbh, mbw, lam, subpel):
 
 
 @functools.partial(jax.jit, static_argnames=("rng", "mbh", "mbw",
-                                             "subpel", "use_pallas"))
+                                             "subpel"))
 def analyse_b_frame(y, ref0_luma, ref1_luma, rng: int, mbh: int,
-                    mbw: int, lam, subpel: int, use_pallas: bool,
-                    w1=32):
+                    mbw: int, lam, subpel: int, w1=32):
     """Fused B analysis: per-list exhaustive ME + subpel, BI cost at
     (bestL0, bestL1). Returns (mv0, c0, mv1, c1, cbi) — mvs qpel
     [mbh,mbw,2], costs [mbh,mbw] SATD + lambda*mvbits."""
@@ -128,14 +127,9 @@ def analyse_b_frame(y, ref0_luma, ref1_luma, rng: int, mbh: int,
     n = mbh * mbw
     outs = []
     for ref_luma in (ref0_luma, ref1_luma):
-        if use_pallas:
-            from ..ops.pallas_kernels import fullpel_search_pallas
-            mv_fp, _ = fullpel_search_pallas.__wrapped__(
-                y, ref_luma[0], rng, mbh, mbw, lam)
-        else:
-            zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
-            mv_fp, _ = ME.fullpel_search.__wrapped__(
-                y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
+        zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
+        mv_fp, _ = ME.fullpel_search.__wrapped__(
+            y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
         windows = QT.gather_windows_jnp(
             ref_luma.astype(jnp.uint8), mv_fp, mbh, mbw).astype(jnp.int32)
         blocks = QT.block_table(windows)
@@ -163,11 +157,10 @@ def analyse_b_frame(y, ref0_luma, ref1_luma, rng: int, mbh: int,
 
 
 @functools.partial(jax.jit, static_argnames=("rng", "mbh", "mbw",
-                                             "subpel", "use_pallas",
-                                             "nrefs"))
+                                             "subpel", "nrefs"))
 def analyse_b_frame_mref(y, refs0_luma, n_valid, ref1_luma, rng: int,
                          mbh: int, mbw: int, lam, subpel: int,
-                         use_pallas: bool, nrefs: int, w1=32):
+                         nrefs: int, w1=32):
     """Multi-ref-L0 twin of analyse_b_frame (reference
     x264_mb_analyse_inter_b16x16, analyse.c "16x16 Search on all ref
     frame": per-MB exhaustive ME against every L0 DPB entry with
@@ -184,14 +177,9 @@ def analyse_b_frame_mref(y, refs0_luma, n_valid, ref1_luma, rng: int,
     cs, mvs, blks = [], [], []
     for r in range(nrefs):
         ref_luma = refs0_luma[r]
-        if use_pallas:
-            from ..ops.pallas_kernels import fullpel_search_pallas
-            mv_fp, _ = fullpel_search_pallas.__wrapped__(
-                y, ref_luma[0], rng, mbh, mbw, lam)
-        else:
-            zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
-            mv_fp, _ = ME.fullpel_search.__wrapped__(
-                y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
+        zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
+        mv_fp, _ = ME.fullpel_search.__wrapped__(
+            y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
         windows = QT.gather_windows_jnp(
             ref_luma.astype(jnp.uint8), mv_fp, mbh,
             mbw).astype(jnp.int32)
@@ -215,14 +203,9 @@ def analyse_b_frame_mref(y, refs0_luma, n_valid, ref1_luma, rng: int,
         ref0.reshape(n)[None, :, None, None], axis=0)[0]
 
     # ---- L1 (single entry) + BI at the winners ----
-    if use_pallas:
-        from ..ops.pallas_kernels import fullpel_search_pallas
-        mv_fp, _ = fullpel_search_pallas.__wrapped__(
-            y, ref1_luma[0], rng, mbh, mbw, lam)
-    else:
-        zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
-        mv_fp, _ = ME.fullpel_search.__wrapped__(
-            y, ref1_luma[0], zero_pred, rng, mbh, mbw, lam)
+    zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
+    mv_fp, _ = ME.fullpel_search.__wrapped__(
+        y, ref1_luma[0], zero_pred, rng, mbh, mbw, lam)
     windows = QT.gather_windows_jnp(
         ref1_luma.astype(jnp.uint8), mv_fp, mbh, mbw).astype(jnp.int32)
     blocks = QT.block_table(windows)
@@ -437,7 +420,7 @@ def encode_b_frame_device(y, u, v, ref0_luma, ref0_u, ref0_v,
 # Reference: the B partition analysis of x264_macroblock_analyse
 # (analyse.c:3110-3466: b8x8 -> b16x8/b8x16 from the cached per-8x8
 # list costs) and the mb_type/sub_mb_type coding tables
-# (encoder/cavlc.c:44-58, spec Tables 7-14/7-18). TPU redesign: the
+# (encoder/cavlc.c:44-58, spec Tables 7-14/7-18). Batched redesign: the
 # per-list exhaustive all-shapes scan (partition.fullpel_search_parts)
 # runs once per list; BI unit costs are exact gathers at the per-list
 # unit winners; the shape x list-combo decision is one batched argmin

@@ -2,7 +2,7 @@
 
 Reference: /root/reference/encoder/cavlc.c (MB writer :288-717, residual
 block writer `block_residual_write_cavlc`) and common/vlc.c tables.
-Redesigned for the TPU pipeline: the device delivers per-MB level arrays
+Redesigned for the device pipeline: the device delivers per-MB level arrays
 (already quantized, block-ordered); this module is the serial bit-exact
 back half. It tracks per-4x4 total_coeff maps itself to derive the nC
 context (the reference threads this through mb.cache.non_zero_count,

@@ -5,7 +5,7 @@ x264_macroblock_encode (encoder/macroblock.c:484-700), decimation
 (quant.c decimate_score, JVT-B118), pskip rules (common/macroblock.c:
 x264_mb_predict_mv_pskip:165).
 
-TPU pipeline per frame (no serial MB loop):
+Device pipeline per frame (no serial MB loop):
   phase D1 (device): exhaustive full-pel ME + subpel refine  -> MV field
   phase D2 (device): MC + residual transform/quant/decimate/recon at the
                      final MVs, all MBs batched
@@ -14,7 +14,7 @@ TPU pipeline per frame (no serial MB loop):
                      [mbh*mbw]; C++ twin planned)
 
 Because P MBs only depend on the *previous* frame's reconstruction,
-nothing in D1/D2 is wavefront-constrained — this is where the TPU wins.
+nothing in D1/D2 is wavefront-constrained — this is where the batched device path wins.
 
 Divergences from the reference (documented):
 - intra modes are never chosen inside P frames (the stego config also
@@ -70,75 +70,6 @@ def decimate_score(levels):
     contrib = jnp.where(nz, jnp.asarray(_DS_TAB)[jnp.clip(run, 0, 15)], 0)
     score = jnp.sum(contrib, axis=1)
     return jnp.where(anybig, 9, score)
-
-
-def _mb_to_coef16(x):
-    """[n,16,16] pixels -> [16(pos 4r+c), n*16(blocks, (n,by,bx)
-    raster)] lane-major layout for the fused Pallas transform kernels."""
-    n = x.shape[0]
-    t = x.reshape(n, 4, 4, 4, 4)          # [n, by, r, bx, c]
-    return t.transpose(2, 4, 0, 1, 3).reshape(16, n * 16)
-
-
-def _coef16_to_lev(x, n):
-    """[16, n*16] -> [n, 4(r), 4(c), 4(by), 4(bx)] (luma_p_encode's
-    lev layout)."""
-    return x.reshape(4, 4, n, 4, 4).transpose(2, 0, 1, 3, 4)
-
-
-def _coef16_to_mb(x, n):
-    """[16, n*16] pixel rows -> [n, 16, 16]."""
-    return x.reshape(4, 4, n, 4, 4).transpose(2, 3, 0, 4, 1) \
-            .reshape(n, 16, 16)
-
-
-# zigzag scan position -> coef row (4*r + c) in the [16, L] layout
-_ZIG_ROWS = np.array([4 * r + c for r, c in T.ZIGZAG_4x4], np.int32)
-
-
-def _decimate_keep16(lev16, n):
-    """JVT-B118 decimation mask in the [16, L] layout: per-4x4 score
-    (static row permutation + cummax over 16 rows), grouped per 8x8 and
-    per MB exactly like decimate_score."""
-    z = lev16[_ZIG_ROWS, :]                          # [16, L] scan order
-    a = jnp.abs(z)
-    anybig = jnp.any(a > 1, axis=0)
-    nz = a > 0
-    idx = jnp.arange(16)[:, None]
-    marked = jnp.where(nz, idx, -1)
-    prev = jax.lax.cummax(marked, axis=0)
-    prev_excl = jnp.concatenate(
-        [jnp.full_like(prev[:1], -1), prev[:-1]], axis=0)
-    run = idx - prev_excl - 1
-    contrib = jnp.where(nz, jnp.asarray(_DS_TAB)[jnp.clip(run, 0, 15)], 0)
-    score = jnp.where(anybig, 9, jnp.sum(contrib, axis=0))  # [L]
-    sc = score.reshape(n, 4, 4)
-    sc8 = sc.reshape(n, 2, 2, 2, 2).sum(axis=(2, 4))        # [n,2,2]
-    keep8 = sc8 >= 4
-    keep_mb = jnp.sum(jnp.where(keep8, sc8, 0), axis=(1, 2)) >= 6
-    keep = keep8 & keep_mb[:, None, None]
-    keep_blk = jnp.repeat(jnp.repeat(keep, 2, 1), 2, 2)     # [n,4,4]
-    return keep_blk.reshape(1, n * 16)
-
-
-def luma_p_encode_fast(cur, pred, qp, decimate: bool):
-    """Pallas twin of luma_p_encode (bit-identical): fused DCT+quant
-    and dequant+IDCT kernels over lane-major [16, L] tiles, decimation
-    as static row ops in between."""
-    from ..ops.pallas_kernels import dct_quant_pallas, deq_idct_pallas
-    n = cur.shape[0]
-    qp = jnp.asarray(qp)
-    cur16 = _mb_to_coef16(cur)
-    pred16 = _mb_to_coef16(pred)
-    mf16 = jnp.asarray(T.QUANT4_MF)[qp].reshape(16)
-    bias16 = jnp.asarray(T.QUANT4_BIAS_INTER)[qp].reshape(16)
-    lev16 = dct_quant_pallas.__wrapped__(cur16, pred16, mf16, bias16)
-    if decimate:
-        lev16 = lev16 * _decimate_keep16(lev16, n)
-    dmf16 = jnp.asarray(T.DEQUANT4_MF)[qp % 6].reshape(16)
-    rec16 = deq_idct_pallas.__wrapped__(lev16, pred16, dmf16,
-                                        qp // 6 - 4)
-    return _coef16_to_lev(lev16, n), _coef16_to_mb(rec16, n)
 
 
 def trellis_quant4x4_planes(coef, qp, intra: bool):
@@ -377,22 +308,12 @@ def encode_p_frame_device(y, u, v, ref_luma, ref_u, ref_v, mv,
     }
 
 
-def assemble_pred_luma(ref_luma, mv8, mbh: int, mbw: int,
-                       mv_bound=None):
-    """Per-8x8-block MC -> [N,16,16] MB preds. mv8: [2mbh,2mbw,2] qpel.
-    mv_bound: when the caller can bound |full-pel mv| (the serving
-    path's exhaustive scan is rng-bounded with a zero predictor), the
-    per-element gather is replaced by the one-hot MXU window select
-    (mc.mc_luma_mm) — bit-exact, ~10x faster on TPU (round 5)."""
+def assemble_pred_luma(ref_luma, mv8, mbh: int, mbw: int):
+    """Per-8x8-block MC -> [N,16,16] MB preds. mv8: [2mbh,2mbw,2] qpel."""
     n8 = 4 * mbh * mbw
-    if mv_bound is not None:
-        p8 = mc.mc_luma_mm(ref_luma, mbh, mbw, mv8.reshape(n8, 2),
-                           mv_bound)
-    else:
-        ys8 = (jnp.arange(n8) // (2 * mbw)) * 8
-        xs8 = (jnp.arange(n8) % (2 * mbw)) * 8
-        p8 = mc.mc_luma(ref_luma, ys8, xs8, mv8.reshape(n8, 2),
-                        bh=8, bw=8)
+    ys8 = (jnp.arange(n8) // (2 * mbw)) * 8
+    xs8 = (jnp.arange(n8) % (2 * mbw)) * 8
+    p8 = mc.mc_luma(ref_luma, ys8, xs8, mv8.reshape(n8, 2), bh=8, bw=8)
     pred = p8.reshape(2 * mbh, 2 * mbw, 8, 8).transpose(0, 2, 1, 3) \
              .reshape(16 * mbh, 16 * mbw)
     n = mbh * mbw
@@ -415,15 +336,14 @@ LAMBDA2_TAB = np.array([
 
 @functools.partial(jax.jit, static_argnames=("mbh", "mbw", "decimate",
                                              "trellis", "cbp_only",
-                                             "trans8", "rd",
-                                             "mv_bound"))
+                                             "trans8", "rd"))
 def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
                            qp, qpc, mbh: int, mbw: int,
                            decimate: bool = True, force_zero=None,
                            trellis: bool = False, nr_offset=None,
                            cbp_only: bool = False,
                            trans8: bool = False, rd: bool = False,
-                           t8_allow=None, mv_bound=None):
+                           t8_allow=None):
     """Partitioned final P encode: mv per 8x8 block ([2mbh,2mbw,2] qpel,
     uniform within each partition unit). Same outputs as
     encode_p_frame_device (the 16x16 path is the mv8-uniform case).
@@ -445,8 +365,7 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
           else force_zero.reshape(n))
 
     cur = y.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(n, 16, 16)
-    pred = assemble_pred_luma(ref_luma, mv8, mbh, mbw,
-                              mv_bound=mv_bound)
+    pred = assemble_pred_luma(ref_luma, mv8, mbh, mbw)
     if nr_offset is not None:
         lev, rec, nrsum = luma_p_encode(cur, pred, qp, decimate,
                                         trellis, nr_offset)
@@ -557,11 +476,7 @@ def encode_p_frame_device8(y, u, v, ref_luma, ref_u, ref_v, mv8,
     for plane, refp in ((u, ref_u), (v, ref_v)):
         curc = plane.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3) \
                     .reshape(n, 8, 8)
-        if mv_bound is not None:
-            pc4 = mc.mc_chroma_mm(refp, mbh, mbw, mvf8,
-                                  mv_bound // 2 + 2)
-        else:
-            pc4 = mc.mc_chroma(refp, ysc, xsc, mvf8, bh=4, bw=4)
+        pc4 = mc.mc_chroma(refp, ysc, xsc, mvf8, bh=4, bw=4)
         predc = pc4.reshape(2 * mbh, 2 * mbw, 4, 4).transpose(0, 2, 1, 3) \
                    .reshape(8 * mbh, 8 * mbw)
         predc = predc.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3) \

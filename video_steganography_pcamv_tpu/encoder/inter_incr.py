@@ -2,7 +2,7 @@
 
 The reference's pass 2 re-runs x264_macroblock_encode for every MB of
 the frame (embed path re-encode after stc_embed; the goto-re-encode in
-encoder/analyse.c drives the whole slice again). On TPU the final
+encoder/analyse.c drives the whole slice again). On the device the final
 re-encode was likewise a full-frame batched program (~136 ms at 1080p)
 — but at serving payloads (tens of bits/frame) the STC flips change
 the motion of only a handful of MBs. Pass 1 now materializes the full

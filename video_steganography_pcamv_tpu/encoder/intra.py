@@ -2,7 +2,7 @@
 
 The reference walks macroblocks serially (encoder/encoder.c:1240-2060),
 each MB consuming its left/top neighbours' *reconstructed* pixels
-(common/macroblock.c:914 cache_load). The TPU design schedules the MB
+(common/macroblock.c:914 cache_load). The device design schedules the MB
 grid in waves: every MB in wave d = mb_x + 2*mb_y is independent — the
 factor 2 (a "knight's move" wavefront) also satisfies the i4x4
 above-RIGHT dependency (spec 6.4.8: top-right 4x4 samples come from the

@@ -1,7 +1,7 @@
 """Batched motion estimation over the whole MB grid.
 
 Reference: /root/reference/encoder/me.c (x264_me_search_ref:158, DIA:248,
-HEX:262, UMH:342, ESA:483; refine_subpel:715). TPU redesign (SURVEY.md §7):
+HEX:262, UMH:342, ESA:483; refine_subpel:715). Batched redesign (SURVEY.md §7):
 instead of per-MB early-exit searches, every candidate displacement is
 evaluated for every macroblock simultaneously:
 

@@ -3,7 +3,7 @@ lockstep, every device stage vmapped over the stream axis.
 
 Reference analog: x264's frame-parallel threading (encoder.c:2358-2362,
 doc/threads.txt) — its way of turning per-frame serial work into
-throughput. On TPU the same idea is a batch axis: the analyse / encode /
+throughput. On the device the same idea is a batch axis: the analyse / encode /
 stego-cost / re-encode programs run once per frame-step over [S, ...]
 stacked inputs, amortizing dispatch latency, transfer syncs and filling
 the chip; the cheap serial host work (scans, STC, entropy, deblock)
@@ -38,16 +38,14 @@ from ..stego.cost import cost_mv_table
 
 
 @functools.partial(jax.jit, static_argnames=("rng", "mbh", "mbw",
-                                             "subpel", "use_pallas",
-                                             "decimate"))
+                                             "subpel", "decimate"))
 def _analyse_encode_s(ys, us, vs, refl, refu, refv, prev_mvs, qps, qpcs,
-                      lams, rng, mbh, mbw, subpel, use_pallas, decimate):
+                      lams, rng, mbh, mbw, subpel, decimate):
     """vmapped analyse + first encode over the stream axis."""
     def one(y, u, v, rl, ru, rv, pm, qp, qpc, lam):
         part, mv8, r_idx8, blocks8, wht8, mbc = \
             PT.analyse_p_frame_parts.__wrapped__(
-                y, rl, pm, rng, mbh, mbw, lam, subpel,
-                use_pallas=use_pallas)
+                y, rl, pm, rng, mbh, mbw, lam, subpel)
         res = P.encode_p_frame_device8.__wrapped__(
             y, u, v, rl, ru, rv, mv8, qp, qpc, mbh, mbw, decimate, None)
         return part, mv8, r_idx8, blocks8, wht8, res
@@ -142,12 +140,10 @@ class MultiEncoder:
         vs = self._put(jnp.stack([t[2] for t in padded]))
         prev = self._put(jnp.stack([jnp.asarray(e.prev_mv)
                                     for e in encs]))
-        on_tpu = jax.default_backend() == "tpu"
-
         part, mv8, r_idx8, blocks8, wht8, res = _analyse_encode_s(
             ys, us, vs, self._refs["luma"], self._refs["u"],
             self._refs["v"], prev, qps, qpcs, lams, p.me_range, mbh,
-            mbw, p.subpel, on_tpu, p.dct_decimate)
+            mbw, p.subpel, p.dct_decimate)
 
         part_np = np.asarray(part)
         mv8_np = np.asarray(mv8)
@@ -275,15 +271,14 @@ class PipelinedMultiEncoder:
     pipeline=True). Each encode_frame dispatches its stream's fused
     stage-1 and defers entropy one frame, so the host's serial work
     (STC, CAVLC/CABAC, muxing) for stream s-1 runs while the device
-    processes stream s's queue — the TPU analog of x264's
+    processes stream s's queue — the device analog of x264's
     one-thread-per-frame throughput model (doc/threads.txt), with the
     device queue as the pipeline. Unlike MultiEncoder there is no GOP
     lockstep requirement: streams are fully independent.
 
-    This replaces the round-1 batched path for the single-chip
-    many-streams case (PERF.md r2 measured it at 0.42 fps/stream for
-    2 streams vs 0.54 single — host deblock + per-stream meta pulls
-    serialized the chip; the fused path has neither)."""
+    This replaces the batched path for the single-card many-streams
+    case: there, host deblock + per-stream meta pulls serialize the
+    device; the fused path has neither."""
 
     def __init__(self, params: Params, n_streams: int):
         self.S = n_streams

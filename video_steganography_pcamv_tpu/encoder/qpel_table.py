@@ -1,31 +1,22 @@
 """Quarter-pel block tables: gather once, slice statically.
 
-The profiling story (recorded in docs/PERF.md): XLA TPU per-MB block
-gathers cost ~10ms each and the v1 pipeline issued ~150 of them per
-frame. The fix exploits a structural fact: after full-pel ME, every
-sample any later stage wants (subpel candidates, stego candidates and
-their local-optimality probes) lies on the quarter-pel lattice within
-+-6 qpel of 4*mv_fp — and because the window is anchored at a *full-pel*
-position, the interpolation phase of each lattice offset is STATIC.
+After full-pel ME, every sample any later stage wants (subpel
+candidates, stego candidates and their local-optimality probes) lies on
+the quarter-pel lattice within +-6 qpel of 4*mv_fp — and because the
+window is anchored at a *full-pel* position, the interpolation phase of
+each lattice offset is STATIC.
 
-So: one Pallas DMA kernel fetches a per-MB window of the four
-half-pel planes; 169 static slice-averages then materialize every
-candidate block with zero gathers; SATD against any of them uses the
-WHT-linearity trick (WHT(a-b) = WHT(a)-WHT(b)) so transforms are
-computed once per block, not once per comparison.
+So: one gather fetches a per-MB window of the four half-pel planes; 169
+static slice-averages then materialize every candidate block with no
+further gathers; SATD against any of them uses the WHT-linearity trick
+(WHT(a-b) = WHT(a)-WHT(b)) so transforms are computed once per block,
+not once per comparison.
 
 Offsets are indexed o = (oy+6)*13 + (ox+6), oy/ox in [-6, 6] qpel.
 """
-
 from __future__ import annotations
 
-import functools
-
-import numpy as np
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..ops import mc
 from ..ops.blocks import to_blocks
@@ -33,9 +24,8 @@ from ..ops.transform import hadamard4x4
 
 # window geometry: origin = fullpel base - MARGIN. Offsets in [-6,6] qpel
 # reach full-pel bases [-2, 1], plus the qpel pairing offset (+1) and the
-# 16-pel block: columns [MARGIN-2, MARGIN+2+15]. WIN must be a multiple
-# of 8 (Mosaic DMA sublane alignment); MARGIN=4/WIN=24 also keeps the
-# fetch inside the valid (non-wrapped) region of the rolled hpel planes:
+# 16-pel block: columns [MARGIN-2, MARGIN+2+15]. MARGIN=4/WIN=24 keeps
+# the fetch inside the valid (non-wrapped) region of the rolled hpel planes:
 # max column = W - 16 + PAD - MARGIN + 16 + (WIN-1) = W + 43 < W + 2*PAD - 3.
 MARGIN = 4
 WIN = 24
@@ -48,54 +38,13 @@ def off_index(oy: int, ox: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Window gather (Pallas DMA; interpret-mode on CPU)
-# ---------------------------------------------------------------------------
-
-def _window_kernel(ys_ref, xs_ref, planes_ref, out_ref, sem):
-    i = pl.program_id(0)
-    cp = pltpu.make_async_copy(
-        planes_ref.at[:, pl.ds(ys_ref[i], WIN), pl.ds(xs_ref[i], WIN)],
-        out_ref.at[0], sem)
-    cp.start()
-    cp.wait()
-
-
-@functools.partial(jax.jit, static_argnames=("mbh", "mbw", "interpret"))
-def gather_windows(planes: jnp.ndarray, mv_fp: jnp.ndarray, mbh: int,
-                   mbw: int, interpret: bool = False) -> jnp.ndarray:
-    """planes: [4, Hp, Wp] padded (F,H,V,C); mv_fp: [mbh, mbw, 2].
-    Returns [N, 4, WIN, WIN] windows at (mb_base + mv_fp - MARGIN)."""
-    n = mbh * mbw
-    ys = ((jnp.arange(n) // mbw) * 16 + mc.PAD - MARGIN
-          + mv_fp.reshape(n, 2)[:, 1])
-    xs = ((jnp.arange(n) % mbw) * 16 + mc.PAD - MARGIN
-          + mv_fp.reshape(n, 2)[:, 0])
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((1, 4, WIN, WIN),
-                               lambda i, ys, xs: (i, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.SemaphoreType.DMA],
-    )
-    out = pl.pallas_call(
-        _window_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n, 4, WIN, WIN), planes.dtype),
-        interpret=interpret,
-    )(ys.astype(jnp.int32), xs.astype(jnp.int32), planes)
-    return out
-
-
-# ---------------------------------------------------------------------------
 # Static block construction from windows
 # ---------------------------------------------------------------------------
 
 def gather_windows_jnp(planes: jnp.ndarray, mv_fp: jnp.ndarray, mbh: int,
                        mbw: int) -> jnp.ndarray:
-    """Plain-XLA twin of gather_windows (used on CPU and as oracle)."""
+    """Per-MB window fetch: [N, 4, WIN, WIN] at (MB base + mv -
+    MARGIN), one XLA gather."""
     n = mbh * mbw
     ys = ((jnp.arange(n) // mbw) * 16 + mc.PAD - MARGIN
           + mv_fp.reshape(n, 2)[:, 1])
@@ -161,45 +110,3 @@ def select_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     moved = jnp.moveaxis(table, 0, 1)            # [N, K, ...]
     shaped = idx.reshape(idx.shape[0], *([1] * (moved.ndim - 1)))
     return jnp.take_along_axis(moved, shaped, axis=1)[:, 0]
-
-
-def select_rows_mm(table: jnp.ndarray, idx: jnp.ndarray,
-                   offsets) -> jnp.ndarray:
-    """Batched multi-offset row select as an int8-split one-hot matmul:
-    out[j, n] = table[idx[n] + offsets[j], n] for a STATIC offset list.
-
-    XLA's gather reads a [K, N, C] table in 2*C-byte scattered rows
-    (~5 GB/s effective on TPU — the probe stage's 49+13 selects
-    measured ~100 ms/frame at 1080p). This form instead does ONE
-    linear pass over the table on the MXU: a [K, J] one-hot
-    contraction per n, int8-split so int16/uint8 payloads stay exact
-    (products <= 127, f32 accumulation of K=169 terms — exact either
-    on the int8 MXU path or via bf16 upcast).
-
-    table: [K, N, C] int16/uint8; idx: [N] int32; offsets: static
-    sequence of J ints. Out-of-range idx+offset rows return 0.
-    Returns [J, N, C] in the table's dtype-width-preserving int type
-    (int32 accumulate, cast back by the caller if desired)."""
-    K, N, C = table.shape
-    off = jnp.asarray(np.asarray(list(offsets), np.int32))    # [J]
-    tgt = idx[:, None] + off[None, :]                         # [N, J]
-    M = (jnp.arange(K, dtype=jnp.int32)[None, :, None]
-         == tgt[:, None, :]).astype(jnp.int8)                 # [N,K,J]
-    valid = ((tgt >= 0) & (tgt < K)).astype(jnp.int32)        # [N, J]
-    # lhs table [K,N,C], rhs M [N,K,J]: contract K, batch N -> [N,C,J]
-    dn = (((0,), (1,)), ((1,), (0,)))
-    t32 = table.astype(jnp.int32)
-    if table.dtype == jnp.uint8:
-        lo = (t32 - 128).astype(jnp.int8)
-        out = jax.lax.dot_general(lo, M, dn,
-                                  preferred_element_type=jnp.int32)
-        out = out + 128 * valid[:, None, :]                   # [N,C,J]
-    else:
-        hi = (t32 >> 8).astype(jnp.int8)
-        lo = ((t32 & 0xFF) - 128).astype(jnp.int8)
-        oh = jax.lax.dot_general(hi, M, dn,
-                                 preferred_element_type=jnp.int32)
-        ol = jax.lax.dot_general(lo, M, dn,
-                                 preferred_element_type=jnp.int32)
-        out = (oh << 8) + ol + 128 * valid[:, None, :]        # [N,C,J]
-    return jnp.moveaxis(out, -1, 0)                           # [J,N,C]

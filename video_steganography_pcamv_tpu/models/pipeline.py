@@ -6,9 +6,9 @@ throughput defines the benchmark (BASELINE.json north star: 1080p
 encode+embed fps/chip). v2 design: full-pel search -> per-MB qpel window
 gather -> static 169-offset block table -> table-based subpel + RCA
 stego costs (encoder/qpel_table.py, encoder/analyse2.py) -> batched
-transform/encode. On TPU the full-pel stage and window gather run as
-Pallas kernels (use_pallas=True); the jnp twins keep the function
-portable for CPU compile checks and the multi-chip dry run.
+transform/encode. The partition-aware step's full-pel stage runs the
+Pallas kernel when lowered for the GPU and the plain scan on the CPU
+(ops/fullpel.py).
 """
 
 from __future__ import annotations
@@ -27,27 +27,18 @@ from ..stego import cost as COST
 
 @functools.partial(jax.jit, static_argnames=(
     "mbh", "mbw", "rng", "subpel", "decimate",
-    "with_stego", "use_pallas"))
+    "with_stego"))
 def p_frame_step(y, u, v, ref_luma, ref_u, ref_v, prev_mv,
                  qp, qpc, mbh: int, mbw: int, rng: int,
                  lam, subpel: int = 2, decimate: bool = True,
-                 with_stego: bool = True, use_pallas: bool = False,
-                 cost_mv=None):
+                 with_stego: bool = True, cost_mv=None):
     """One P frame, all device stages fused.
 
     Returns dict with mv field, levels/cbp, recon planes, stego rho/alt.
     """
-    if use_pallas:
-        from ..ops.pallas_kernels import fullpel_search_pallas
-        mv_fp, _ = fullpel_search_pallas.__wrapped__(
-            y, ref_luma[0], rng, mbh, mbw, lam)
-    else:
-        zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
-        mv_fp, _ = ME.fullpel_search.__wrapped__(
-            y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
-    # window fetch stays on the XLA gather: its ~2ns/element amortized
-    # cost beats the per-MB DMA kernel's alignment contortions (Mosaic
-    # requires 8-aligned dynamic sublane starts; see docs/PERF.md)
+    zero_pred = jnp.zeros((mbh, mbw, 2), jnp.int32)
+    mv_fp, _ = ME.fullpel_search.__wrapped__(
+        y, ref_luma[0], zero_pred, rng, mbh, mbw, lam)
     windows = QT.gather_windows_jnp(ref_luma, mv_fp, mbh, mbw)
 
     blocks = QT.block_table(windows)
@@ -85,13 +76,11 @@ def multi_stream_step(ys, us, vs, ref_lumas, ref_us, ref_vs, prev_mvs,
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "mbh", "mbw", "rng", "subpel", "decimate", "with_stego",
-    "use_pallas"))
+    "mbh", "mbw", "rng", "subpel", "decimate", "with_stego"))
 def p_frame_step_parts(y, u, v, ref_luma, ref_u, ref_v, prev_mv,
                        qp, qpc, mbh: int, mbw: int, rng: int,
                        lam, subpel: int = 2, decimate: bool = True,
-                       with_stego: bool = True,
-                       use_pallas: bool = False, cost_mv=None):
+                       with_stego: bool = True, cost_mv=None):
     """Partition-aware flagship step: all-shapes full-pel scan ->
     partition decision -> per-8x8 qpel tables -> per-unit subpel ->
     partitioned encode -> per-unit RCA stego costs, one dispatch.
@@ -101,8 +90,7 @@ def p_frame_step_parts(y, u, v, ref_luma, ref_u, ref_v, prev_mv,
 
     part, mv8, r_idx8, blocks8, wht8, _mb_cost = \
         PT.analyse_p_frame_parts.__wrapped__(
-            y, ref_luma, prev_mv, rng, mbh, mbw, lam, subpel,
-            use_pallas=use_pallas)
+            y, ref_luma, prev_mv, rng, mbh, mbw, lam, subpel)
     out = INTER.encode_p_frame_device8.__wrapped__(
         y, u, v, ref_luma, ref_u, ref_v, mv8, qp, qpc, mbh, mbw,
         decimate, None)

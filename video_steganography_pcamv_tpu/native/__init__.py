@@ -1,36 +1,59 @@
 """ctypes loader for the native host back-end (libpcamv_native.so).
 
-Builds on first use if missing (g++ is baked into the image; no
-pybind11 — plain C ABI + ctypes per the environment constraints).
-`load()` returns None when unavailable; callers fall back to the Python
-oracles.
+The library is built from this directory's sources with its Makefile
+on first use, into `build/` (ignored by git; `-march=native`, so it
+is built on the host that runs it). Plain C ABI + ctypes, no pybind11.
+`load()` returns None when the build fails, after printing the
+compiler's error; `build_error` keeps it. Callers then use the Python
+oracles, and `chip_smoke.py` fails.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import sys
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_LIB = os.path.join(_DIR, "libpcamv_native.so")
+_BUILD = os.path.join(_DIR, "build")
+_LIB = os.path.join(_BUILD, "libpcamv_native.so")
+_SRCS = ("pcamv_native.cpp", "deblock.cpp", "cabac.cpp")
 _lib = None
 _tried = False
+build_error: str | None = None
+
+
+def _stale() -> bool:
+    return (not os.path.exists(_LIB)
+            or any(os.path.getmtime(_LIB)
+                   < os.path.getmtime(os.path.join(_DIR, s))
+                   for s in _SRCS))
 
 
 def _build() -> bool:
-    try:
-        r = subprocess.run(["make", "-C", _DIR, "-s"], capture_output=True,
-                           text=True, timeout=120)
-        if r.returncode != 0:
-            import sys
-            print("pcamv native build failed:\n" + r.stderr[-2000:],
-                  file=sys.stderr)
-        return r.returncode == 0
-    except Exception:
+    """Run the Makefile under a file lock (parallel test workers all
+    reach the first load at once)."""
+    global build_error
+    os.makedirs(_BUILD, exist_ok=True)
+    with open(os.path.join(_BUILD, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _stale():
+            return True
+        try:
+            r = subprocess.run(["make", "-C", _DIR, "-s"],
+                               capture_output=True, text=True, timeout=300)
+            err = r.stderr[-2000:] if r.returncode else None
+        except (OSError, subprocess.TimeoutExpired) as e:
+            err = repr(e)
+    if err is not None:
+        build_error = err
+        print("pcamv native build failed:\n" + err, file=sys.stderr)
         return False
+    return True
 
 
 def load():
@@ -40,13 +63,8 @@ def load():
     if _tried:
         return None
     _tried = True
-    srcs = [os.path.join(_DIR, f) for f in
-            ("pcamv_native.cpp", "deblock.cpp")]
-    if (not os.path.exists(_LIB)
-            or any(os.path.getmtime(_LIB) < os.path.getmtime(s)
-                   for s in srcs if os.path.exists(s))):
-        if not _build():
-            return None
+    if _stale() and not _build():
+        return None
     lib = ctypes.CDLL(_LIB)
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

@@ -1,6 +1,6 @@
 // Native host back-end: CAVLC entropy coder, MVP/skip scans, STC embedder.
 //
-// TPU-native equivalent of the reference's serial host paths:
+// Native equivalent of the reference's serial host paths:
 //   - encoder/cavlc.c:288-717 (MB + residual writers) and common/bs.h
 //   - common/macroblock.c:28-165 (median MVP / pskip derivation)
 //   - embed.h:309-548 (STC Viterbi)

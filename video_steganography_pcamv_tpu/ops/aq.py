@@ -9,7 +9,7 @@ qp = clip(frame_qp + offset) per MB with a +-1 hysteresis against the
 previous MB's qp. Zones: parse_zones (ratecontrol.c:602-671) forces a
 per-frame-range QP (q=) or rate factor (b=).
 
-TPU redesign: the per-MB SIMD var calls become ONE batched reduction
+Batched redesign: the per-MB SIMD var calls become ONE batched reduction
 over MB tiles; log2 is computed exactly in f32 instead of the
 reference's 128-entry LUT (the LUT approximates log2 to ~1e-2 — an
 encoder-side decision value, not syntax, so exactness buys nothing).

@@ -1,6 +1,6 @@
 """Block-layout helpers.
 
-TPU-first layout decision: instead of the reference's per-macroblock
+Device-first layout decision: instead of the reference's per-macroblock
 [4][4] int16 arrays walked by scalar loops (common/dct.c:122-180), every
 4x4 (or NxN) block position in the frame becomes one *coefficient plane*:
 

@@ -1,7 +1,7 @@
 """Motion compensation: half/quarter-pel luma + 1/8-pel chroma, batched.
 
 Reference: /root/reference/common/mc.c (hpel_filter:167, mc_luma:197,
-get_ref:220, mc_chroma:246). TPU redesign:
+get_ref:220, mc_chroma:246). Batched redesign:
 
 - The three half-pel planes (H, V, C) are produced once per reference
   frame as whole-plane separable 6-tap filters (pure VPU work, XLA-fused).
@@ -17,9 +17,6 @@ All filters are the normative spec 8.4.2.2 integer math.
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 
 PAD = 24  # fullpel border; supports |mv| up to PAD-8 beyond frame edge
@@ -71,118 +68,6 @@ def gather_blocks(plane: jnp.ndarray, y0: jnp.ndarray, x0: jnp.ndarray,
     ys = y0[:, None] + jnp.arange(bh)[None, :]          # [N, bh]
     xs = x0[:, None] + jnp.arange(bw)[None, :]          # [N, bw]
     return plane[ys[:, :, None], xs[:, None, :]]
-
-
-def windows_mm(planes, nq: int, nb: int, sy: int, sx: int, oy, ox,
-               bound: int, win: int = 16):
-    """Regular-grid window fetch as one-hot MXU contractions.
-
-    The TPU's scalar gather unit moves ~0.4 GB/s on per-element window
-    fetches (round-5 measurement: the window/MC gathers dominated the
-    1080p frame). This form loads per-block-row strips with STATIC
-    slices and selects each block's win x win window with two one-hot
-    matmuls (column select, then row select) — sequential HBM reads,
-    MXU compute.
-
-    planes: [P, Hp, Wp] (PAD-padded, values <= 255 — exact in bf16).
-    Block (q, b) sits at unpadded (sy*q, sx*b); its window top-left is
-    (sy*q + PAD + oy[q,b], sx*b + PAD + ox[q,b]) with |oy|,|ox| <=
-    bound (CALLER'S CONTRACT — violations select out-of-strip zeros,
-    never out-of-bounds memory). Returns [nq*nb, P, win, win] int32.
-    """
-    import jax
-
-    P_, Hp, Wp = planes.shape
-    Hs = win + 2 * bound
-    # strip rows must stay inside the plane: dynamic_slice CLAMPS the
-    # start (silently shifting the strip) — pad the bottom instead
-    ex = max(0, sy * (nq - 1) + PAD - bound + Hs - Hp)
-    if ex:
-        planes = jnp.pad(planes, ((0, 0), (0, ex), (0, 0)))
-    strips = jnp.stack([
-        jax.lax.dynamic_slice(
-            planes, (0, sy * q + PAD - bound, 0), (P_, Hs, Wp))
-        for q in range(nq)])                       # [nq, P, Hs, Wp]
-    xs = (sx * jnp.arange(nb, dtype=jnp.int32)[None, :] + PAD
-          + ox.astype(jnp.int32))                  # [nq, nb]
-    dy = oy.astype(jnp.int32) + bound              # [nq, nb] >= 0
-    colw = jnp.arange(win, dtype=jnp.int32)
-    wcol = jnp.arange(Wp, dtype=jnp.int32)
-    srow = jnp.arange(Hs, dtype=jnp.int32)
-
-    def one_q(_, args):
-        strip, xq, dyq = args
-        tgt = xq[:, None] + colw[None, :]                  # [nb,win]
-        C = (wcol[:, None, None] == tgt[None]) \
-            .reshape(Wp, nb * win)
-        M = jnp.dot(strip.reshape(P_ * Hs, Wp).astype(jnp.bfloat16),
-                    C.astype(jnp.bfloat16),
-                    preferred_element_type=jnp.float32)
-        M = M.reshape(P_, Hs, nb, win).transpose(2, 0, 3, 1)
-        rt = dyq[:, None, None] + colw[None, None, :]      # [nb,1,win]
-        Rh = (srow[None, :, None] == rt).astype(jnp.float32)
-        out = jnp.einsum("bpjs,bsi->bpij", M, Rh,
-                         preferred_element_type=jnp.float32)
-        return None, out.astype(jnp.int32)         # [nb,P,win,win]
-
-    _, outs = jax.lax.scan(one_q, None, (strips, xs, dy))
-    return outs.reshape(nq * nb, P_, win, win)
-
-
-def mc_luma_mm(planes, mbh: int, mbw: int, mv, bound: int):
-    """mc_luma twin for the regular 8x8 block grid with BOUNDED MVs
-    (|full-pel component| <= bound): per-block [4, 16, 16] windows via
-    windows_mm, then the qpel phase average with in-window static
-    shifts. Bit-exact vs mc_luma (fuzzed in tests/test_pallas.py)."""
-    nq, nb = 2 * mbh, 2 * mbw
-    mvx, mvy = mv[:, 0], mv[:, 1]
-    iyf = (mvy >> 2).reshape(nq, nb)
-    ixf = (mvx >> 2).reshape(nq, nb)
-    w = windows_mm(planes, nq, nb, 8, 8, iyf, ixf, bound, win=16)
-    p1, d1y, d1x, p2, d2y, d2x = qpel_phase_tables(mvx, mvy)
-
-    def plane_sel(p):
-        out = w[:, 0]
-        for k in (1, 2, 3):
-            out = jnp.where((p == k)[:, None, None], w[:, k], out)
-        return out
-
-    w1 = plane_sel(p1)
-    w2 = plane_sel(p2)
-
-    def shift_sel(wv, dy, dx):
-        c00 = wv[:, 0:8, 0:8]
-        c01 = wv[:, 0:8, 1:9]
-        c10 = wv[:, 1:9, 0:8]
-        c11 = wv[:, 1:9, 1:9]
-        dy = (dy > 0)[:, None, None]
-        dx = (dx > 0)[:, None, None]
-        return jnp.where(dy, jnp.where(dx, c11, c10),
-                         jnp.where(dx, c01, c00))
-
-    s1 = shift_sel(w1, d1y, d1x)
-    s2 = shift_sel(w2, d2y, d2x)
-    return (s1 + s2 + 1) >> 1                      # [n8, 8, 8]
-
-
-def mc_chroma_mm(plane_padded, mbh: int, mbw: int, mv, bound: int):
-    """mc_chroma twin for the regular 4x4 chroma block grid (one 4x4
-    chroma block per luma 8x8) with BOUNDED MVs. bound is in chroma
-    full-pel units (>= luma_bound//2 + 1)."""
-    nq, nb = 2 * mbh, 2 * mbw
-    mvx, mvy = mv[:, 0], mv[:, 1]
-    iyf = (mvy >> 3).reshape(nq, nb)
-    ixf = (mvx >> 3).reshape(nq, nb)
-    w = windows_mm(plane_padded[None], nq, nb, 4, 4, iyf, ixf, bound,
-                   win=8)[:, 0]                    # [n8, 8, 8]
-    fx = (mvx & 7)[:, None, None]
-    fy = (mvy & 7)[:, None, None]
-    a = w[:, 0:4, 0:4]
-    b = w[:, 0:4, 1:5]
-    c = w[:, 1:5, 0:4]
-    d = w[:, 1:5, 1:5]
-    return ((8 - fx) * (8 - fy) * a + fx * (8 - fy) * b
-            + (8 - fx) * fy * c + fx * fy * d + 32) >> 6
 
 
 def qpel_phase_tables(mvx, mvy):

@@ -2,7 +2,7 @@
 
 Reference: x264's RD mode decision re-includes the entropy writers as
 size estimators (/root/reference/encoder/rdo.c:46-59, used by
-x264_rd_cost_mb :139). The TPU equivalent computes the EXACT CAVLC bit
+x264_rd_cost_mb :139). The device equivalent computes the EXACT CAVLC bit
 count of 4x4 residual blocks fully batched: table lookups for
 coeff_token / total_zeros / run_before plus one 16-step lax.scan
 carrying the level-suffix state (spec 9.2; twin of

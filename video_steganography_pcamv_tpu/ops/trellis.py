@@ -5,7 +5,7 @@ over zigzag positions whose 8 states are the CABAC abs-level context
 pairs, scoring SSD (transform-domain, weighted back to pixel scale)
 plus lambda2 * CABAC entropy of the sig/last/abs-level bins.
 
-TPU redesign: one `lax.scan` over the zigzag positions (reverse order,
+Batched redesign: one `lax.scan` over the zigzag positions (reverse order,
 exactly the reference's iteration), batched over EVERY 4x4 block of the
 frame at once — [M, 8] node tensors instead of the reference's per-block
 serial loop; traceback is a second reverse scan over recorded

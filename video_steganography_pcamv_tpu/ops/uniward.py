@@ -18,7 +18,7 @@ Because the reference ships with alpha_com = 0 (encoder.c:1652), this
 term is off by default and its exact scale does not affect parity; it is
 exposed through StegoParams.alpha_com.
 
-Everything is jax convs -> XLA fuses to MXU/VPU work; no Pallas needed.
+Everything is jax convs that XLA compiles as they stand; no kernel.
 """
 
 from __future__ import annotations
@@ -60,7 +60,10 @@ def _corr_same(x, k):
     out = jax.lax.conv_general_dilated(
         xp[None, None], jnp.asarray(k[::-1, ::-1])[None, None],
         window_strides=(1, 1), padding="VALID",
-        dimension_numbers=("NCHW", "OIHW", "NCHW"))[0, 0]
+        dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        # float32 on the GPU would otherwise run in TF32 (~10 mantissa
+        # bits): the host reference computes these in full precision
+        precision=jax.lax.Precision.HIGHEST)[0, 0]
     # xp conv VALID yields (H + 2p - kr + 1); crop to align 'same' center
     ph = max(top, kr - 1 - top)
     pw = max(left, kc - 1 - left)

@@ -2,10 +2,10 @@
 
 The reference's only parallelism is shared-memory pthreads over frames
 (encoder.c:2358-2362, doc/threads.txt); there is no distributed backend
-to port (SURVEY.md §2.4). The TPU-native scaling axes are:
+to port (SURVEY.md §2.4). The device scaling axes are:
 
-- dp ("streams"): independent video streams/GOPs sharded across chips —
-  embarrassingly parallel, rides DCN or separate hosts.
+- dp ("streams"): independent video streams/GOPs sharded across cards —
+  embarrassingly parallel.
 - tile: the MB grid of one frame split across chips along MB rows; ME
   windows need a halo exchange of the reference planes (future work:
   ppermute halos; today each chip holds the full reference and slices
@@ -14,7 +14,7 @@ to port (SURVEY.md §2.4). The TPU-native scaling axes are:
 `encode_streams_sharded` jits the full fused P-step over a Mesh with the
 stream axis sharded; XLA partitions every stage (ME scan, transforms,
 stego cost tensor) with zero collectives on the hot path, plus one psum
-for global stats so the ICI path is exercised.
+for global stats so the collective path is exercised.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def build_multi_encoder(params, mesh: Mesh, axis: str = "dp"):
     stream per chip. Every stacked device input (frames, refs, MV
     fields) is placed with NamedSharding(mesh, P(axis)), so the vmapped
     analyse/encode/stego/re-encode jits are partitioned by XLA with no
-    collectives on the hot path — the TPU-native analog of the
+    collectives on the hot path — the device analog of the
     reference's one-thread-per-frame pthreads model
     (/root/reference/encoder/encoder.c:2358-2362, doc/threads.txt)."""
     from ..encoder.multistream import MultiEncoder
@@ -53,7 +53,7 @@ def encode_streams_sharded(mesh: Mesh, ys, us, vs, ref_lumas, ref_us,
     """Run the fused P-step for S streams sharded over the mesh's dp
     axis. All inputs have a leading stream axis divisible by the mesh
     size. Returns the per-stream outputs + a globally-psummed SAD-ish
-    stat (forces one collective through the ICI)."""
+    stat (forces one collective between the cards)."""
     sh = NamedSharding(mesh, P("dp"))
     put = lambda x: jax.device_put(x, sh)
     args = tuple(map(put, (ys, us, vs, ref_lumas, ref_us, ref_vs,

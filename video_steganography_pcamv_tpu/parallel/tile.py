@@ -1,12 +1,12 @@
 """Frame-tile (model-parallel) mesh axis: one frame's MB rows sharded
-across chips, reference-plane halos exchanged over ICI.
+across cards, reference-plane halos exchanged between them.
 
 This is the second scaling axis of the SURVEY §5 design (dp = streams
 across chips; tile = MB rows of ONE stream across chips). The
 reference's analog is its frame-parallel pthreads protocol, where each
 thread encodes a whole frame but may only reference COMPLETED rows of
 in-flight frames and therefore clamps vertical MV range
-(/root/reference/doc/threads.txt:10-18). The TPU tile axis has the
+(reference doc/threads.txt:10-18). The tile axis has the
 same shape: each chip encodes its row band against the previous
 frame's recon, holding only its own band plus a PAD-row halo from the
 neighbouring chips — so the vertical MV predictor is clamped to keep

@@ -4,8 +4,7 @@ Reference: x264_ih_get_mv_cost (/root/reference/encoder/analyse.c:2391-2550)
 with MV_SATD_FDEC_IH (:2364-2385) and the candidate tables (:2561-2565).
 Per covered MV the reference serially performs up to 13 full MB re-encodes
 and 117 SATD probes; here the whole frame is a single device program over
-a [N_mb, 13, 9] tensor (SURVEY.md §3.5: "this is what the TPU build must
-batch").
+a [N_mb, 13, 9] tensor (SURVEY.md §3.5: the part the rebuild must batch).
 
 Semantics reproduced exactly:
 - "distortion" of probing mv q against a candidate's *reconstruction*:
